@@ -7,8 +7,8 @@ import sys
 
 import numpy as np
 
-from modulation_mfcc_tpu.io.wav import write_wav
-from modulation_mfcc_tpu.parallel.corpus import CorpusSweep, sweep_mfcc_change
+from modulation_mfcc.io.wav import write_wav
+from modulation_mfcc.parallel.corpus import CorpusSweep, sweep_mfcc_change
 
 
 def main() -> None:

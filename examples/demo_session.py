@@ -7,8 +7,8 @@ import sys
 
 import numpy as np
 
-from modulation_mfcc_tpu.io.wav import write_wav
-from modulation_mfcc_tpu.models.workbench import AnalysisSession
+from modulation_mfcc.io.wav import write_wav
+from modulation_mfcc.models.workbench import AnalysisSession
 
 
 def main() -> None:

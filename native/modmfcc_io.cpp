@@ -1,6 +1,6 @@
-// modmfcc_io — native host-side audio runtime for modulation_mfcc_tpu.
+// modmfcc_io — native host-side audio runtime for modulation_mfcc.
 //
-// The feature pipelines run on TPU; the host's job is to keep the chip fed
+// The feature pipelines run on the accelerator; the host's job is to keep it fed
 // (SURVEY.md §7: "the bottleneck is host I/O + resampling"). This library
 // provides the native equivalents of the Python io/wav.py path:
 //

@@ -1,22 +1,20 @@
-"""bench.py incremental artifact emission + total-wall budget (r4 verdict #1/#3/#7).
+"""bench.py incremental artifact emission, wall budget and exit status.
 
-Round 4's driver-captured artifact was an rc=124 shell: bench measured
-every headline field, printed nothing (single end-of-run emit), and the
-driver's SIGKILL erased the round's numbers. The contract now:
+The contract:
 
-  * an artifact line is printed after EVERY completed field
-    (last-line-wins at the driver's tail parser), so a kill at any point
-    keeps all finished fields;
+  * an artifact line is printed after EVERY completed field (last line
+    wins), so a kill at any point keeps all finished fields;
   * in-process ``log_event`` records are silenced for the whole run so a
-    corpus event can never be the last JSON line (that is literally what
-    r4's driver parsed as the round artifact);
+    corpus event can never be the last JSON line;
   * a total-wall budget (``MODMFCC_BENCH_TOTAL_TIMEOUT``) skips fields the
     remaining budget can't hold and records them in ``skipped_wall``;
-  * per-field repeat stats (min/median/max over the timing trials, in
-    metric units) land in ``repeat_stats`` so a bar can be judged as
-    median − spread, not a single best sample.
+  * per-field repeat stats ([min, median, max] over the timing trials, in
+    metric units) land in ``repeat_stats``;
+  * every line names the device; the final line stays under 2000 chars;
+  * the exit status is non-zero when JAX finds no GPU or any field failed.
 
-All asserted from subprocesses — SIGKILL and ``os._exit`` end the process.
+All asserted from subprocesses with the device check and the fields
+stubbed (no card here) — SIGKILL ends the process.
 """
 import json
 import os
@@ -32,9 +30,6 @@ def _env(**extra):
     env = dict(os.environ)
     env.update({
         "JAX_PLATFORMS": "cpu",
-        "MODMFCC_BENCH_BACKEND_TRIES": "1",
-        "MODMFCC_BENCH_PROBE_TIMEOUT": "60",
-        "MODMFCC_BENCH_FIELD_TIMEOUT": "120",
         "PYTHONPATH": REPO + ":" + env.get("PYTHONPATH", ""),
     })
     env.update(extra)
@@ -51,15 +46,16 @@ def _art_lines(text):
     return out
 
 
-# Stubs every measured field with an instant fake (so the test needs no
-# device and runs in seconds), except one slow field partway through the
-# run — the SIGKILL target.
+# Stubs the device check and every measured field with an instant fake (so
+# the test needs no device and runs in seconds), except one slow field
+# partway through the run — the SIGKILL target — and optionally one that
+# raises.
 STUB_SCRIPT = r"""
 import sys, time
 sys.path.insert(0, %(repo)r)
 import bench
 
-bench._await_backend = lambda *a, **k: True
+bench._device_info = lambda: {"platform": "gpu", "kind": "stub", "count": 1}
 
 def _fake(val):
     def fn(*a, **k):
@@ -67,38 +63,39 @@ def _fake(val):
         return val
     return fn
 
-bench._throughput = lambda spectrum, *a, **k: _fake(
-    {"pallas_bf16": 100.0, "pallas": 40.0, "pallas_i24": 58.0,
-     "pallas_x3": 62.0, "pallas_i16": 65.0}[spectrum])()
-bench._rows_throughput = lambda spectrum, *a, **k: _fake(
-    {"pallas_bf16": 120.0, "pallas_i24": 63.0, "pallas_x3": 70.0,
-     "pallas_i16": 75.0}[spectrum])()
-bench._pitch_engines_agree = lambda *a, **k: 1.0
-bench._pyin_engines_agree = lambda *a, **k: 1.0
-bench._tracker_throughput = _fake(4.5)
-bench._pyin_throughput = _fake(2.6)
-
-
 def _slow(*a, **k):
     print("SLOW_FIELD_STARTED", flush=True)
     time.sleep(%(slow_s)d)
     return 30.0
 
+def _boom(*a, **k):
+    raise RuntimeError("stub failure")
 
-bench._masked_batch_throughput = _slow
-bench._modspec_throughput = _fake(9.0)
-bench._longform_1h_seconds = _fake(0.8)
-bench._corpus_throughput = _fake(0.3)
-bench._corpus_2shard_throughput = _fake(0.1)
-bench.main()
+fakes = {
+    "value": _fake(100.0), "matmul_bf16_rows": _fake(120.0),
+    "matmul_i16": _fake(65.0), "matmul_i24_rows": _fake(63.0),
+    "pyin_sweep_16k": _fake(2.6), "masked_batch_64": _slow,
+    "corpus_sweep": _fake(0.3),
+}
+if %(fail)r:
+    fakes["modspec_batch"] = _boom
+bench.FIELDS = [
+    (name, fakes.get(name, _fake(10.0)), (), cost)
+    for name, _fn, _args, cost in bench.FIELDS
+]
+sys.exit(bench.main())
 """
+
+
+def _stub(slow_s, fail=False):
+    return STUB_SCRIPT % {"repo": REPO, "slow_s": slow_s, "fail": fail}
 
 
 def test_sigkill_mid_run_keeps_completed_fields():
     """SIGKILL during a field: the last artifact line on stdout carries
-    every already-completed field — this is the r4 failure mode, fixed."""
+    every already-completed field."""
     p = subprocess.Popen(
-        [sys.executable, "-c", STUB_SCRIPT % {"repo": REPO, "slow_s": 120}],
+        [sys.executable, "-c", _stub(120)],
         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
         env=_env(),
     )
@@ -122,41 +119,44 @@ def test_sigkill_mid_run_keeps_completed_fields():
     last = arts[-1]
     # every field completed before the kill survives in the last line
     assert last["value"] == 100.0
-    assert last["bf16_rows"] == 120.0
-    assert last["i16_parity_mode"] == 65.0
-    assert last["i24_rows"] == 63.0
+    assert last["matmul_bf16_rows"] == 120.0
+    assert last["matmul_i16"] == 65.0
+    assert last["matmul_i24_rows"] == 63.0
     assert last["pyin_sweep_16k"] == 2.6
+    assert last["masked_batch_64"] is None
     assert last["partial"] is True
-    # repeat stats in metric units, judgeable as median − spread
-    rs = last["repeat_stats"]["bf16_headline"]
-    assert rs == {"n": 3, "min": 99.0, "median": 100.0, "max": 102.0}
-    assert last["vs_baseline"] == round(100.0 / 62.5, 4)
+    assert last["device"] == {"platform": "gpu", "kind": "stub", "count": 1}
+    # repeat stats in metric units: [min, median, max]
+    assert last["repeat_stats"]["value"] == [99.0, 100.0, 102.0]
 
 
 def test_full_run_emits_incrementally_and_final_line_wins():
     r = subprocess.run(
-        [sys.executable, "-c", STUB_SCRIPT % {"repo": REPO, "slow_s": 0}],
+        [sys.executable, "-c", _stub(0)],
         capture_output=True, text=True, timeout=300, env=_env(),
     )
     assert r.returncode == 0, r.stderr
     arts = _art_lines(r.stdout)
-    # one line per completed field (18 field slots) + the final emit
+    # one line per completed field + the final emit
     assert len(arts) >= 15
     final = arts[-1]
     assert "partial" not in final
     assert final["value"] == 100.0
     assert final["masked_batch_64"] == 30.0
-    assert final["corpus_2shard"] == 0.1
-    assert "skipped_wall" not in final
+    assert final["corpus_sweep"] == 0.3
+    assert "skipped_wall" not in final and "failed" not in final
     # every earlier line is marked partial
     assert all(a.get("partial") for a in arts[:-1])
+    # the driver reads the tail: the artifact line must stay short
+    last_line = [l for l in r.stdout.splitlines() if l.startswith("{")][-1]
+    assert len(last_line) < 2000
 
 
 def test_wall_budget_skips_and_records():
     """MODMFCC_BENCH_TOTAL_TIMEOUT=0: every field is skipped with a
     recorded reason; the run still produces a final artifact quickly."""
     r = subprocess.run(
-        [sys.executable, "-c", STUB_SCRIPT % {"repo": REPO, "slow_s": 120}],
+        [sys.executable, "-c", _stub(120)],
         capture_output=True, text=True, timeout=300,
         env=_env(MODMFCC_BENCH_TOTAL_TIMEOUT="0"),
     )
@@ -164,8 +164,34 @@ def test_wall_budget_skips_and_records():
     assert "SLOW_FIELD_STARTED" not in r.stdout  # never even started
     final = _art_lines(r.stdout)[-1]
     assert final["value"] is None
-    assert "bf16_headline" in final["skipped_wall"]
+    assert "value" in final["skipped_wall"]
     assert "masked_batch_64" in final["skipped_wall"]
+
+
+def test_failed_field_exits_nonzero():
+    """A field that raises is listed in ``failed`` and turns the exit
+    status to 1; the fields that ran are still in the final line."""
+    r = subprocess.run(
+        [sys.executable, "-c", _stub(0, fail=True)],
+        capture_output=True, text=True, timeout=300, env=_env(),
+    )
+    assert r.returncode == 1, r.stderr
+    final = _art_lines(r.stdout)[-1]
+    assert final["failed"] == ["modspec_batch"]
+    assert final["modspec_batch"] is None
+    assert final["value"] == 100.0
+
+
+def test_bench_refuses_cpu_backend():
+    """On a CPU backend bench.py measures nothing, prints no artifact and
+    exits non-zero — a CPU number is never reported as a device metric."""
+    r = subprocess.run(
+        [sys.executable, REPO + "/bench.py"],
+        capture_output=True, text=True, timeout=120, env=_env(),
+    )
+    assert r.returncode == 2
+    assert not _art_lines(r.stdout)
+    assert "GPU" in r.stderr
 
 
 def test_log_event_silenced_under_bench():
@@ -173,7 +199,7 @@ def test_log_event_silenced_under_bench():
     it for its own process), log_event writes nothing."""
     script = (
         "import os; os.environ['MODMFCC_LOG_SILENT']='1';"
-        "from modulation_mfcc_tpu.utils.obs import log_event;"
+        "from modulation_mfcc.utils.obs import log_event;"
         "log_event('corpus.finish', items=1);"
         "del os.environ['MODMFCC_LOG_SILENT'];"
         "log_event('corpus.finish', items=2)"
@@ -185,12 +211,3 @@ def test_log_event_silenced_under_bench():
     assert r.returncode == 0, r.stderr
     lines = [l for l in r.stderr.splitlines() if l.startswith("{")]
     assert len(lines) == 1 and json.loads(lines[0])["items"] == 2
-
-
-def test_resume_flag_missing_path_is_usage_error():
-    r = subprocess.run(
-        [sys.executable, REPO + "/bench.py", "--resume"],
-        capture_output=True, text=True, timeout=60, env=_env(),
-    )
-    assert r.returncode == 2
-    assert "usage" in r.stderr

@@ -1,14 +1,19 @@
-"""Atomic persistent-cache writes (modulation_mfcc_tpu._harden_cache_writes).
+"""Atomic persistent-cache writes (modulation_mfcc._harden_cache_writes).
 
 jax's stock LRUCache.put publishes entries with a bare write_bytes and
 never overwrites an existing key, so a kill mid-write leaves a permanently
-truncated entry; deserializing one segfaulted the full suite twice
-(2026-08-21) until the cache dir was wiped. The package patches put to
-tmp-file + os.replace when eviction is off. These tests pin the patch.
+truncated entry; deserializing one segfaults the process until the cache
+dir is wiped. The package patches put to tmp-file + os.replace when
+eviction is off. These tests pin the patch and the cache's location.
 """
 import os
+import pathlib
+import subprocess
+import sys
 
-import modulation_mfcc_tpu  # noqa: F401  (applies the patch on import)
+import pytest
+
+import modulation_mfcc  # noqa: F401  (applies the patch on import)
 
 from jax._src import lru_cache
 
@@ -45,3 +50,25 @@ def test_orphan_tmp_invisible_to_get(tmp_path):
     assert c.get("nokey") is None
     c.put("k3", b"v")
     assert c.get("k3") == b"v"
+
+
+@pytest.mark.parametrize("env_dir", [False, True], ids=["fixed_path", "env_var"])
+def test_compile_cache_placement(tmp_path, env_dir):
+    """Unset JAX_COMPILATION_CACHE_DIR → the cache sits at the fixed
+    in-checkout path; set → JAX's own setting stands, nothing overrides it."""
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_COMPILATION_CACHE_DIR", "MODMFCC_NO_CACHE")}
+    env.update(JAX_PLATFORMS="cpu", PYTHONPATH=str(repo))
+    if env_dir:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path)
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import jax, modulation_mfcc as m;"
+         "print(jax.config.jax_compilation_cache_dir); print(m.CACHE_DIR)"],
+        capture_output=True, text=True, timeout=120, env=env, cwd=str(tmp_path),
+    )
+    assert r.returncode == 0, r.stderr
+    got, fixed = r.stdout.split()
+    assert fixed == str(repo / ".jax_cache")
+    assert got == (str(tmp_path) if env_dir else fixed)

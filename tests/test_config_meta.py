@@ -6,8 +6,8 @@ import json
 import numpy as np
 import pytest
 
-from modulation_mfcc_tpu.io.wav import load_channel, write_wav
-from modulation_mfcc_tpu.models.config import (
+from modulation_mfcc.io.wav import load_channel, write_wav
+from modulation_mfcc.models.config import (
     DerivationConfig,
     MfccConfig,
     PipelineConfig,
@@ -15,8 +15,8 @@ from modulation_mfcc_tpu.models.config import (
     config_from_reference_json,
     config_to_reference_json,
 )
-from modulation_mfcc_tpu.models.pipeline import resolve_derivation
-from modulation_mfcc_tpu.models.workbench import AnalysisSession
+from modulation_mfcc.models.pipeline import resolve_derivation
+from modulation_mfcc.models.workbench import AnalysisSession
 
 
 def test_derivation_keys_roundtrip():
@@ -116,7 +116,7 @@ def test_load_channel_selects(stereo_wav):
 
 def test_channelN_reaches_pipeline(stereo_wav):
     """MfccConfig.channelN selects the analysis channel end-to-end."""
-    from modulation_mfcc_tpu.models.pipeline import extract_feature
+    from modulation_mfcc.models.pipeline import extract_feature
 
     p, _ = stereo_wav
     cfg0 = PipelineConfig(mfcc=MfccConfig())

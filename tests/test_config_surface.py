@@ -3,9 +3,9 @@ through the float64 oracle (guards the silent landmines of SURVEY.md §7 #6)."""
 import numpy as np
 import pytest
 
-from modulation_mfcc_tpu.models.config import MfccConfig
-from modulation_mfcc_tpu.models.modulation import extract_mfcc_change
-from modulation_mfcc_tpu.oracle import get_mfccs_change_np
+from modulation_mfcc.models.config import MfccConfig
+from modulation_mfcc.models.modulation import extract_mfcc_change
+from modulation_mfcc.oracle import get_mfccs_change_np
 
 
 @pytest.fixture(scope="module")

@@ -3,10 +3,10 @@ import os
 
 import numpy as np
 
-from modulation_mfcc_tpu.io.wav import write_wav
-from modulation_mfcc_tpu.models.config import MfccConfig
-from modulation_mfcc_tpu.parallel.corpus import CorpusSweep, sweep_mfcc_change
-from tests.reference_impl import get_mfccs_change_np
+from modulation_mfcc.io.wav import write_wav
+from modulation_mfcc.models.config import MfccConfig
+from modulation_mfcc.parallel.corpus import CorpusSweep, sweep_mfcc_change
+from modulation_mfcc.oracle import get_mfccs_change_np
 
 
 def _mk_corpus(d, n=5, sr=10_000):
@@ -35,7 +35,7 @@ def test_sweep_end_to_end(tmp_path):
         rec = np.load(out / (os.path.splitext(os.path.basename(p))[0] + ".npz"))
         assert rec["times"].shape == rec["mod_cepstr"].shape
     # spot-check one file vs the oracle
-    from modulation_mfcc_tpu.io.wav import load_channel
+    from modulation_mfcc.io.wav import load_channel
 
     y = load_channel(paths[0], 10_000)
     want, _ = get_mfccs_change_np(np.asarray(y, dtype=np.float64), 10_000)
@@ -45,7 +45,7 @@ def test_sweep_end_to_end(tmp_path):
 
 def test_sweep_multifeature_and_mesh(tmp_path):
     """Sweep with f0+envelope extras, sharded over the virtual 8-device mesh."""
-    from modulation_mfcc_tpu.parallel.mesh import make_mesh
+    from modulation_mfcc.parallel.mesh import make_mesh
 
     paths = _mk_corpus(tmp_path, n=4)
     out = tmp_path / "feats"
@@ -104,7 +104,7 @@ def test_sweep_resume_and_isolation(tmp_path):
 
 def test_cli_sweep_features_flag(tmp_path):
     """`cli sweep --features` plumbs the comma list into CorpusSweep."""
-    from modulation_mfcc_tpu.cli import main as cli_main
+    from modulation_mfcc.cli import main as cli_main
 
     paths = _mk_corpus(tmp_path, n=2)
     out = tmp_path / "feats"
@@ -141,8 +141,8 @@ def test_int16_upload_path_exact(tmp_path):
     off-grid (e.g. resampled) buckets keep float32."""
     import jax.numpy as jnp
 
-    from modulation_mfcc_tpu.parallel.batch import dequantize_samples
-    from modulation_mfcc_tpu.parallel.corpus import _make_batch
+    from modulation_mfcc.parallel.batch import dequantize_samples
+    from modulation_mfcc.parallel.corpus import _make_batch
 
     rng = np.random.default_rng(3)
     on_grid = (rng.integers(-(2**15), 2**15 - 1, 4000).astype(np.float32)) / 32768.0
@@ -164,12 +164,10 @@ def test_int16_upload_path_exact(tmp_path):
 
 
 def test_sweep_hop_rows_path_matches_flat(tmp_path):
-    """The hop-rows corpus fast path (pallas spectrum + mod_cepstr-only +
-    int16 buckets, r4): records must equal the flat int16-upload sweep's
-    bitwise — the rows contract dequantizes in-kernel with an exact ·2⁻¹⁵.
-    Runs the real sweep driver twice under interpret mode."""
-    from jax.experimental.pallas import tpu as pltpu
-
+    """The hop-rows corpus path (matmul spectrum + mod_cepstr-only + int16
+    buckets): records must equal the flat int16-upload sweep's bitwise —
+    the rows contract dequantizes on device with an exact ·2⁻¹⁵ and only
+    reshapes the pre-padded buffer. Runs the real sweep driver twice."""
     sr = 16_000
     rng = np.random.default_rng(11)
     paths = []
@@ -180,25 +178,24 @@ def test_sweep_hop_rows_path_matches_flat(tmp_path):
         write_wav(p, y, sr)
         paths.append(p)
     cfg = MfccConfig(signal_sample_rate=sr, maxFreq=8000.0)
-    with pltpu.force_tpu_interpret_mode():
-        sweep_rows = CorpusSweep(
-            out_dir=str(tmp_path / "rows"), cfg=cfg, batch_size=3,
-            spectrum="pallas_i16", resume=False,
-        )
-        rep = sweep_mfcc_change(paths, sweep_rows)
-        assert rep["items"] == 3
-        # flat comparison: force the non-rows assembly by requesting a
-        # second (flat-consuming) feature alongside — envelope uses flat
-        # samples, so rows_mode must disable itself
-        from modulation_mfcc_tpu.models.config import AmplitudeConfig
+    sweep_rows = CorpusSweep(
+        out_dir=str(tmp_path / "rows"), cfg=cfg, batch_size=3,
+        spectrum="matmul_i16", resume=False,
+    )
+    rep = sweep_mfcc_change(paths, sweep_rows)
+    assert rep["items"] == 3
+    # flat comparison: force the non-rows assembly by requesting a second
+    # (flat-consuming) feature alongside — envelope uses flat samples, so
+    # rows_mode must disable itself
+    from modulation_mfcc.models.config import AmplitudeConfig
 
-        sweep_flat = CorpusSweep(
-            out_dir=str(tmp_path / "flat"), cfg=cfg, batch_size=3,
-            spectrum="pallas_i16", resume=False,
-            features=("mod_cepstr", "envelope"),
-            amp_cfg=AmplitudeConfig(method="RMS"),
-        )
-        sweep_mfcc_change(paths, sweep_flat)
+    sweep_flat = CorpusSweep(
+        out_dir=str(tmp_path / "flat"), cfg=cfg, batch_size=3,
+        spectrum="matmul_i16", resume=False,
+        features=("mod_cepstr", "envelope"),
+        amp_cfg=AmplitudeConfig(method="RMS"),
+    )
+    sweep_mfcc_change(paths, sweep_flat)
     for i in range(3):
         r = np.load(tmp_path / "rows" / f"u{i}.npz")
         f = np.load(tmp_path / "flat" / f"u{i}.npz")

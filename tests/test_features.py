@@ -4,9 +4,9 @@ import scipy.signal as sps
 
 import jax.numpy as jnp
 
-from modulation_mfcc_tpu.models.config import MfccConfig
-from modulation_mfcc_tpu.models.features import cmvn, delta, mfcc_with_deltas
-from modulation_mfcc_tpu.models.modulation import extract_mfcc_change
+from modulation_mfcc.models.config import MfccConfig
+from modulation_mfcc.models.features import cmvn, delta, mfcc_with_deltas
+from modulation_mfcc.models.modulation import extract_mfcc_change
 
 
 def test_delta_matches_librosa_formula(rng):

@@ -6,9 +6,9 @@ import scipy.signal as sps
 
 import jax.numpy as jnp
 
-from modulation_mfcc_tpu.ops import filters as F
-from modulation_mfcc_tpu.ops.savgol import savgol_filter_jax
-from modulation_mfcc_tpu.ops.derivatives import findiff_apply, np_gradient, velocity
+from modulation_mfcc.ops import filters as F
+from modulation_mfcc.ops.savgol import savgol_filter_jax
+from modulation_mfcc.ops.derivatives import findiff_apply, np_gradient, velocity
 
 
 @pytest.fixture(scope="module")

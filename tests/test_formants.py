@@ -7,9 +7,9 @@ import scipy.signal as sps
 
 import jax.numpy as jnp
 
-from modulation_mfcc_tpu.models.config import FormantConfig
-from modulation_mfcc_tpu.models.formants import extract_formants, formants_with_gating
-from modulation_mfcc_tpu.ops.lpc import burg_lpc, poly_roots_dk
+from modulation_mfcc.models.config import FormantConfig
+from modulation_mfcc.models.formants import extract_formants, formants_with_gating
+from modulation_mfcc.ops.lpc import burg_lpc, poly_roots_dk
 
 SR = 10_000
 
@@ -71,8 +71,8 @@ def test_vowel_formants_recovered():
     # all three true resonances present among the full pole set
     import jax.numpy as jnp
 
-    from modulation_mfcc_tpu.io.wav import resample
-    from modulation_mfcc_tpu.ops.lpc import lpc_formants
+    from modulation_mfcc.io.wav import resample
+    from modulation_mfcc.ops.lpc import lpc_formants
 
     xr = resample(y, SR, 11_000)
     freqs, bw = lpc_formants(jnp.asarray(xr, dtype=jnp.float32), sr=11_000.0)
@@ -97,8 +97,8 @@ def test_intensity_gating_drops_silence():
 def test_burg_recursion_matches_published_oracle(rng):
     """burg_lpc vs the float64 Burg recursion written straight from the
     published Andersen recursion (oracle.burg_np) — VERDICT r2 #4."""
-    from modulation_mfcc_tpu.ops.lpc import burg_lpc
-    from modulation_mfcc_tpu.oracle import burg_np
+    from modulation_mfcc.ops.lpc import burg_lpc
+    from modulation_mfcc.oracle import burg_np
 
     frames = rng.standard_normal((6, 550))
     for order in (8, 10, 16):
@@ -112,13 +112,13 @@ def test_lpc_formants_matches_float64_oracle(speechlike):
     roots → band filter → sort) vs the float64 oracle using np.roots
     instead of Durand-Kerner. NaN patterns identical; freqs/bandwidths to
     sub-Hz."""
-    from modulation_mfcc_tpu.ops.lpc import lpc_formants
-    from modulation_mfcc_tpu.oracle import praat_formants_np
+    from modulation_mfcc.ops.lpc import lpc_formants
+    from modulation_mfcc.oracle import praat_formants_np
 
     y, sr = speechlike
     y = y[: sr]
     got_f, got_b = lpc_formants(
-        jnp.asarray(y), sr=float(sr), max_formant=sr / 2, burg_engine="xla"
+        jnp.asarray(y), sr=float(sr), max_formant=sr / 2
     )
     _, want_f, want_b = praat_formants_np(y, sr, max_formant=sr / 2)
     got_f, got_b = np.asarray(got_f), np.asarray(got_b)
@@ -134,8 +134,8 @@ def test_lpc_formants_oracle_nondefault_config(speechlike):
     shorter window, coarser step, higher pre-emphasis — exercises the
     window/geometry/order plumbing the defaults test can't distinguish
     (all reference-exposed knobs, script/calc.py:131-148)."""
-    from modulation_mfcc_tpu.ops.lpc import lpc_formants
-    from modulation_mfcc_tpu.oracle import praat_formants_np
+    from modulation_mfcc.ops.lpc import lpc_formants
+    from modulation_mfcc.oracle import praat_formants_np
 
     y, sr = speechlike
     y = y[: sr]
@@ -144,7 +144,7 @@ def test_lpc_formants_oracle_nondefault_config(speechlike):
         max_formant=sr / 2,
     )
     got_f, got_b = lpc_formants(
-        jnp.asarray(y), sr=float(sr), order=8, burg_engine="xla", **kw
+        jnp.asarray(y), sr=float(sr), order=8, **kw
     )
     _, want_f, want_b = praat_formants_np(y, sr, max_formants=4.0, **kw)
     got_f, got_b = np.asarray(got_f), np.asarray(got_b)

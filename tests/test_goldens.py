@@ -41,8 +41,8 @@ def _check(name: str, arrays: dict[str, np.ndarray], atol: float):
 
 
 def test_golden_f0_ac(speechlike):
-    from modulation_mfcc_tpu.models.config import F0Config
-    from modulation_mfcc_tpu.models.pitch import extract_f0
+    from modulation_mfcc.models.config import F0Config
+    from modulation_mfcc.models.pitch import extract_f0
 
     y, sr = speechlike
     f0, t = extract_f0(y, sr, F0Config(outFilter=None, interpUnvoiced=None))
@@ -50,8 +50,8 @@ def test_golden_f0_ac(speechlike):
 
 
 def test_golden_f0_cc(speechlike):
-    from modulation_mfcc_tpu.models.config import F0Config
-    from modulation_mfcc_tpu.models.pitch import extract_f0
+    from modulation_mfcc.models.config import F0Config
+    from modulation_mfcc.models.pitch import extract_f0
 
     y, sr = speechlike
     f0, t = extract_f0(
@@ -61,8 +61,8 @@ def test_golden_f0_cc(speechlike):
 
 
 def test_golden_f0_pyin(speechlike):
-    from modulation_mfcc_tpu.models.config import F0Config
-    from modulation_mfcc_tpu.models.pitch import extract_f0
+    from modulation_mfcc.models.config import F0Config
+    from modulation_mfcc.models.pitch import extract_f0
 
     y, sr = speechlike
     f0, t = extract_f0(
@@ -72,8 +72,8 @@ def test_golden_f0_pyin(speechlike):
 
 
 def test_golden_formants(speechlike):
-    from modulation_mfcc_tpu.models.config import FormantConfig
-    from modulation_mfcc_tpu.models.formants import extract_formants
+    from modulation_mfcc.models.config import FormantConfig
+    from modulation_mfcc.models.formants import extract_formants
 
     y, sr = speechlike
     t, (f1, f2, f3) = extract_formants(y, sr, FormantConfig())
@@ -81,7 +81,7 @@ def test_golden_formants(speechlike):
 
 
 def test_golden_intensity(speechlike):
-    from modulation_mfcc_tpu.ops.intensity import intensity_db
+    from modulation_mfcc.ops.intensity import intensity_db
 
     y, sr = speechlike
     db = intensity_db(jnp.asarray(y, dtype=jnp.float32), sr=float(sr), min_pitch=100.0)
@@ -89,7 +89,7 @@ def test_golden_intensity(speechlike):
 
 
 def test_golden_rmspraat(speechlike):
-    from modulation_mfcc_tpu.models.pitch_adaptive import praat_style_intensity
+    from modulation_mfcc.models.pitch_adaptive import praat_style_intensity
 
     y, sr = speechlike
     amp, rate = praat_style_intensity(jnp.asarray(y, dtype=jnp.float32), sr)

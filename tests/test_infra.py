@@ -10,11 +10,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from modulation_mfcc_tpu.models.config import F0Config, PipelineConfig, load_config, save_config
-from modulation_mfcc_tpu.models.modulation import modulation_spectrum, modulation_spectrum_axes
-from modulation_mfcc_tpu.models.config import MfccConfig
-from modulation_mfcc_tpu.parallel.prefetch import background_iter, prefetch_to_device
-from modulation_mfcc_tpu.utils.obs import ThroughputMeter, log_event, profile_trace
+from modulation_mfcc.models.config import F0Config, PipelineConfig, load_config, save_config
+from modulation_mfcc.models.modulation import modulation_spectrum, modulation_spectrum_axes
+from modulation_mfcc.models.config import MfccConfig
+from modulation_mfcc.parallel.prefetch import background_iter, prefetch_to_device
+from modulation_mfcc.utils.obs import ThroughputMeter, log_event, profile_trace
 
 
 def test_background_iter_order_and_errors():
@@ -80,9 +80,9 @@ def test_modulation_spectrum_axes(speechlike):
 def test_cli_verify_harness():
     """The full tracker parity harness (mod_cepstr + intensity + pitch ac +
     pyin vs their float64 oracles) must pass end-to-end on the CPU backend —
-    this is the exact command run on the real TPU (`modmfcc verify`)."""
+    this is the exact command run on the card (`modmfcc verify`)."""
     out = subprocess.run(
-        [sys.executable, "-m", "modulation_mfcc_tpu.cli", "verify",
+        [sys.executable, "-m", "modulation_mfcc.cli", "verify",
          "--seconds", "1.2"],
         capture_output=True, text=True, timeout=540,
         env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
@@ -103,7 +103,7 @@ def test_cli_verify_harness():
 
 def test_cli_info_smoke():
     out = subprocess.run(
-        [sys.executable, "-m", "modulation_mfcc_tpu.cli", "info"],
+        [sys.executable, "-m", "modulation_mfcc.cli", "info"],
         capture_output=True, text=True, timeout=120,
         env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
              "PYTHONPATH": ".", "HOME": "/root"},

@@ -5,9 +5,9 @@ import re
 import numpy as np
 import pytest
 
-from modulation_mfcc_tpu.io.textgrid import IntervalTier, TextGrid, write_textgrid
-from modulation_mfcc_tpu.io.wav import write_wav
-from modulation_mfcc_tpu.models.workbench import AnalysisSession
+from modulation_mfcc.io.textgrid import IntervalTier, TextGrid, write_textgrid
+from modulation_mfcc.io.wav import write_wav
+from modulation_mfcc.models.workbench import AnalysisSession
 
 
 @pytest.fixture(scope="module")

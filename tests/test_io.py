@@ -4,9 +4,9 @@ import csv
 import numpy as np
 import pytest
 
-from modulation_mfcc_tpu.io.ag50x import DIMS, linear_resample, read_ag50x, write_ag50x
-from modulation_mfcc_tpu.io.csvexport import CurveColumn, export_curves_csv, interval_aggregations
-from modulation_mfcc_tpu.io.textgrid import (
+from modulation_mfcc.io.ag50x import DIMS, linear_resample, read_ag50x, write_ag50x
+from modulation_mfcc.io.csvexport import CurveColumn, export_curves_csv, interval_aggregations
+from modulation_mfcc.io.textgrid import (
     Interval,
     IntervalTier,
     Point,
@@ -15,7 +15,7 @@ from modulation_mfcc_tpu.io.textgrid import (
     read_textgrid,
     write_textgrid,
 )
-from modulation_mfcc_tpu.io.wav import read_wav, resample, write_wav
+from modulation_mfcc.io.wav import read_wav, resample, write_wav
 
 
 def test_wav_roundtrip_int16(tmp_path, rng):
@@ -85,7 +85,7 @@ def test_resampler_feature_divergence(rng):
     """
     from scipy.signal import resample as fourier_resample
 
-    from tests.reference_impl import get_mfccs_change_np
+    from modulation_mfcc.oracle import get_mfccs_change_np
 
     sr_in, sr_out = 44_100, 10_000
     n = sr_in  # 1 s → integer-Hz bins are exactly periodic

@@ -6,16 +6,16 @@ import scipy.signal as sps
 import jax
 import jax.numpy as jnp
 
-from modulation_mfcc_tpu.models.config import MfccConfig
-from modulation_mfcc_tpu.ops import filters as F
-from modulation_mfcc_tpu.ops.masked import (
+from modulation_mfcc.models.config import MfccConfig
+from modulation_mfcc.ops import filters as F
+from modulation_mfcc.ops.masked import (
     masked_gradient,
     masked_odd_ext,
     masked_savgol,
     masked_sosfiltfilt,
 )
-from modulation_mfcc_tpu.parallel.batch import batched_mfcc_change, pad_batch
-from tests.reference_impl import get_mfccs_change_np
+from modulation_mfcc.parallel.batch import batched_mfcc_change, pad_batch
+from modulation_mfcc.oracle import get_mfccs_change_np
 
 
 def test_masked_odd_ext(rng):

@@ -4,11 +4,11 @@ import scipy.signal as sps
 
 import jax.numpy as jnp
 
-from modulation_mfcc_tpu.models.config import MfccConfig
-from modulation_mfcc_tpu.models.modulation import extract_mfcc_change, min_frames_for_fir
-from modulation_mfcc_tpu.ops import filters as F
-from modulation_mfcc_tpu.ops.masked import masked_sosfiltfilt_fir
-from tests.reference_impl import get_mfccs_change_np
+from modulation_mfcc.models.config import MfccConfig
+from modulation_mfcc.models.modulation import extract_mfcc_change, min_frames_for_fir
+from modulation_mfcc.ops import filters as F
+from modulation_mfcc.ops.masked import masked_sosfiltfilt_fir
+from modulation_mfcc.oracle import get_mfccs_change_np
 
 
 def test_masked_fir_matches_scipy(rng):

@@ -1,13 +1,13 @@
 """Golden parity: JAX MFCC + modulation pipeline vs the float64 CPU oracle
-(tests/reference_impl.py replicating librosa semantics, scipy filters)."""
+(modulation_mfcc/oracle.py replicating librosa semantics, scipy filters)."""
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from modulation_mfcc_tpu import MfccConfig, extract_mfcc_change
-from modulation_mfcc_tpu.models.modulation import mfcc_trajectories, modulation_spectrum
-from tests.reference_impl import get_mfccs_change_np, mfcc_np
+from modulation_mfcc import MfccConfig, extract_mfcc_change
+from modulation_mfcc.models.modulation import mfcc_trajectories, modulation_spectrum
+from modulation_mfcc.oracle import get_mfccs_change_np, mfcc_np
 
 
 def test_mfcc_matrix_parity(speechlike):
@@ -74,7 +74,7 @@ def test_modulation_spectrum_shape(speechlike):
 
 
 def test_config_json_roundtrip():
-    from modulation_mfcc_tpu import PipelineConfig, config_from_reference_json, config_to_reference_json
+    from modulation_mfcc import PipelineConfig, config_from_reference_json, config_to_reference_json
 
     cfg = PipelineConfig()
     d = config_to_reference_json(cfg)
@@ -90,22 +90,3 @@ def test_config_json_roundtrip():
     cfg3 = config_from_reference_json(d)
     assert cfg3.mfcc == cfg.mfcc
 
-
-def test_modspec_conv_form_matches_fft(speechlike):
-    """The TPU strided-conv modulation-spectrum stage == the fft+framing
-    form to float reduction order (the conv is the DESIGN.md §3 rule-2
-    rewrite of the same windowed sliding dot)."""
-    from modulation_mfcc_tpu.models.modulation import _modspec_power_conv
-    from modulation_mfcc_tpu.ops.framing import frame_signal
-    from modulation_mfcc_tpu.ops.spectral import analysis_window, power_spectrum_fft
-
-    y, sr = speechlike
-    rng = np.random.default_rng(4)
-    traj = jnp.asarray(rng.standard_normal((3, 700)).astype(np.float32))
-    n, hop = 128, 16
-    want = np.asarray(
-        power_spectrum_fft(frame_signal(traj, n, hop), n, analysis_window(n, "hann", n))
-    )
-    got = np.asarray(_modspec_power_conv(traj, n, hop))
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)

@@ -3,14 +3,14 @@ threaded batch loader end-to-end."""
 import numpy as np
 import pytest
 
-from modulation_mfcc_tpu.io.native import (
+from modulation_mfcc.io.native import (
     NativeBatchLoader,
     decode_wav_native,
     design_resample_taps,
     native_available,
     resample_native,
 )
-from modulation_mfcc_tpu.io.wav import read_wav, write_wav
+from modulation_mfcc.io.wav import read_wav, write_wav
 
 pytestmark = pytest.mark.skipif(
     not native_available(), reason="native library unavailable (no toolchain)"

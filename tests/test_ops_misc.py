@@ -6,11 +6,11 @@ from scipy.interpolate import PchipInterpolator, interp1d
 
 import jax.numpy as jnp
 
-from modulation_mfcc_tpu.models.config import AmplitudeConfig
-from modulation_mfcc_tpu.models.envelope import extract_envelope, rms_envelope
-from modulation_mfcc_tpu.ops.hilbert import hilbert_envelope
-from modulation_mfcc_tpu.ops.interp import interp_nan
-from modulation_mfcc_tpu.ops.peaks import peak_mask, peaks_in_interval
+from modulation_mfcc.models.config import AmplitudeConfig
+from modulation_mfcc.models.envelope import extract_envelope, rms_envelope
+from modulation_mfcc.ops.hilbert import hilbert_envelope
+from modulation_mfcc.ops.interp import interp_nan
+from modulation_mfcc.ops.peaks import peak_mask, peaks_in_interval
 
 
 @pytest.mark.parametrize("n", [256, 257])
@@ -162,7 +162,7 @@ def test_rms_envelope_fallback_tiny_hop(rng):
 
 
 def test_frame_by_slices_offset_grid(rng):
-    from modulation_mfcc_tpu.ops.framing import frame_by_slices
+    from modulation_mfcc.ops.framing import frame_by_slices
 
     y = rng.standard_normal((2, 777))
     s0, W, H = 13, 64, 10
@@ -173,8 +173,8 @@ def test_frame_by_slices_offset_grid(rng):
 
 
 def test_resample_poly_device_matches_host(rng):
-    from modulation_mfcc_tpu.io.wav import resample
-    from modulation_mfcc_tpu.ops.resample import resample_device
+    from modulation_mfcc.io.wav import resample
+    from modulation_mfcc.ops.resample import resample_device
 
     for orig, tgt in ((10_000, 11_000), (44_100, 10_000), (16_000, 10_000)):
         x = rng.standard_normal(8011)
@@ -185,14 +185,14 @@ def test_resample_poly_device_matches_host(rng):
 
 
 def test_resample_poly_device_blocked_matches_flat(rng):
-    """The blocked long-signal conv path (row framing, used above the HBM
+    """The blocked long-signal conv path (row framing, used above the
     layout threshold — see resample_poly_device docstring) is element-
     equal to the flat path up to conv reduction-order noise (the virtual
     8-device host platform partitions the two shapes differently — bitwise
     equality holds on a plain single-device CPU but not under the test
     mesh), including ragged tail rows, up-/down-sampling, and batched
     leading dims."""
-    from modulation_mfcc_tpu.ops.resample import resample_poly_device
+    from modulation_mfcc.ops.resample import resample_poly_device
 
     for up, dn, n in ((1, 3, 10_000), (3, 2, 8_011), (160, 441, 9_000), (2, 3, 4_097)):
         x = jnp.asarray(rng.standard_normal(n).astype(np.float32))
@@ -210,7 +210,7 @@ def test_resample_poly_device_blocked_matches_flat(rng):
 
 
 def test_hop_window_sums_edges(rng):
-    from modulation_mfcc_tpu.ops.framing import hop_window_sums
+    from modulation_mfcc.ops.framing import hop_window_sums
 
     y = rng.standard_normal(257)
     # (window, hop) covering rem=0, rem>0, and window < hop (q=0)
@@ -224,7 +224,7 @@ def test_hop_window_sums_edges(rng):
 def test_spectrogram_zoom_blur():
     """Reference display smoothing (praat_py_ui/spectrogram.py:70-71):
     order-4 spline zoom ×6 with matching re-gridded axes."""
-    from modulation_mfcc_tpu.models.sound import praat_spectrogram
+    from modulation_mfcc.models.sound import praat_spectrogram
 
     sr = 10_000
     t = np.arange(sr // 2) / sr
@@ -241,7 +241,7 @@ def test_spectrogram_zoom_blur():
 def test_animate_position_callback_sequence():
     """Playback-cursor animation (reference main.py:2081-2098): positions
     advance monotonically start→end, then None signals cursor hide."""
-    from modulation_mfcc_tpu.io.audio_device import animate_position
+    from modulation_mfcc.io.audio_device import animate_position
 
     seen = []
     fake_t = [0.0]
@@ -266,8 +266,8 @@ def test_spectrogram_vs_float64_oracle():
     the display-relevant range (within 80 dB of the per-matrix max — the
     viewer's dynamic range); below it both must agree that the bin is
     floor-dark. Speech-like content: tone + burst + silence."""
-    from modulation_mfcc_tpu.models.sound import praat_spectrogram
-    from modulation_mfcc_tpu.oracle import praat_spectrogram_np
+    from modulation_mfcc.models.sound import praat_spectrogram
+    from modulation_mfcc.oracle import praat_spectrogram_np
 
     sr = 16_000
     rng = np.random.default_rng(3)

@@ -6,11 +6,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from modulation_mfcc_tpu.models.config import MfccConfig
-from modulation_mfcc_tpu.models.modulation import mfcc_change
-from modulation_mfcc_tpu.parallel.batch import pad_batch, sharded_mfcc_change
-from modulation_mfcc_tpu.parallel.mesh import make_mesh
-from modulation_mfcc_tpu.parallel.streaming import (
+from modulation_mfcc.models.config import MfccConfig
+from modulation_mfcc.models.modulation import mfcc_change
+from modulation_mfcc.parallel.batch import pad_batch, sharded_mfcc_change
+from modulation_mfcc.parallel.mesh import make_mesh
+from modulation_mfcc.parallel.streaming import (
     chunked_mfcc_change,
     sharded_longform_mfcc_change,
 )
@@ -71,8 +71,8 @@ def test_multislice_mesh_matches_single(rng):
     """('slice','data','time') mesh: the 2-slice layout must produce the
     same features + corpus stats as the single-mesh path (the 'slice' leg
     rides DCN on real hardware; here it's a local device group)."""
-    from modulation_mfcc_tpu.parallel.batch import pad_batch, sharded_mfcc_change
-    from modulation_mfcc_tpu.parallel.multislice import (
+    from modulation_mfcc.parallel.batch import pad_batch, sharded_mfcc_change
+    from modulation_mfcc.parallel.multislice import (
         make_multislice_mesh,
         multislice_sharded_mfcc_change,
         shard_manifest,

@@ -12,9 +12,9 @@ parselmouth = pytest.importorskip("parselmouth")
 
 import jax.numpy as jnp
 
-from modulation_mfcc_tpu.models.config import F0Config, FormantConfig
-from modulation_mfcc_tpu.models.formants import extract_formants
-from modulation_mfcc_tpu.ops.pitch import pitch_ac
+from modulation_mfcc.models.config import F0Config, FormantConfig
+from modulation_mfcc.models.formants import extract_formants
+from modulation_mfcc.ops.pitch import pitch_ac
 
 SR = 10_000
 

@@ -9,7 +9,7 @@ import os
 
 import numpy as np
 
-from modulation_mfcc_tpu.cli import main
+from modulation_mfcc.cli import main
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "utterance_16k.wav")
 
@@ -32,7 +32,7 @@ def test_fixture_provenance():
 def test_verify_all_surfaces_on_speech(capsys):
     """The full parity harness (all surfaces incl. padded_batch == per-file)
     on the speech fixture — the same command the round evidence runs on the
-    real TPU (`modmfcc verify --wav tests/fixtures/utterance_16k.wav`)."""
+    card (`modmfcc verify --wav tests/fixtures/utterance_16k.wav`)."""
     rc = main(["verify", "--wav", FIXTURE])
     out = capsys.readouterr().out
     lines = [json.loads(l) for l in out.strip().splitlines() if l.startswith("{")]

@@ -1,9 +1,9 @@
 """The `modmfcc verify` parity harness itself is a shipped surface — pin
 that every section passes on CPU so the harness can't rot between the
-TPU runs it exists for (it is the judge-/user-facing parity artifact)."""
+card runs it exists for (it is the judge-/user-facing parity artifact)."""
 import json
 
-from modulation_mfcc_tpu.cli import main
+from modulation_mfcc.cli import main
 
 
 def test_verify_all_surfaces_pass(capsys):

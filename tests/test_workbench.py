@@ -5,10 +5,10 @@ import os
 import numpy as np
 import pytest
 
-from modulation_mfcc_tpu.io.ag50x import write_ag50x
-from modulation_mfcc_tpu.io.textgrid import IntervalTier, TextGrid, write_textgrid
-from modulation_mfcc_tpu.io.wav import write_wav
-from modulation_mfcc_tpu.models.workbench import AnalysisSession
+from modulation_mfcc.io.ag50x import write_ag50x
+from modulation_mfcc.io.textgrid import IntervalTier, TextGrid, write_textgrid
+from modulation_mfcc.io.wav import write_wav
+from modulation_mfcc.models.workbench import AnalysisSession
 
 
 @pytest.fixture(scope="module")
@@ -103,7 +103,7 @@ def test_manual_peak_editing(wav_path):
 def test_extract_mfcc_alias():
     import numpy as np
 
-    import modulation_mfcc_tpu as mm
+    import modulation_mfcc as mm
 
     y = np.sin(2 * np.pi * 150 * np.arange(12000) / 10_000)
     t, m = mm.extract_mfcc(y)

@@ -4,9 +4,9 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from modulation_mfcc_tpu.models.config import F0Config
-from modulation_mfcc_tpu.models.pitch import extract_f0
-from modulation_mfcc_tpu.ops.yin import pyin_f0, yin_cmndf
+from modulation_mfcc.models.config import F0Config
+from modulation_mfcc.models.pitch import extract_f0
+from modulation_mfcc.ops.yin import pyin_f0, yin_cmndf
 
 SR = 10_000
 
@@ -66,8 +66,8 @@ def test_extract_f0_pyin_method():
 
 
 def test_sliding_cmndf_matches_framed(rng):
-    from modulation_mfcc_tpu.ops.framing import frame_by_slices
-    from modulation_mfcc_tpu.ops.yin import _sliding_cmndf
+    from modulation_mfcc.ops.framing import frame_by_slices
+    from modulation_mfcc.ops.yin import _sliding_cmndf
 
     for hop, w, ml, n in ((10, 64, 17, 500), (7, 50, 12, 301), (25, 100, 30, 800)):
         x = jnp.asarray(rng.standard_normal(n).astype(np.float32))
@@ -95,7 +95,7 @@ def _speechlike_sig():
 def test_pyin_matches_float64_oracle():
     """Decoded pitch states must match the librosa-exact float64 oracle
     (oracle.pyin_np) bit-for-bit on the speech-like fixture (VERDICT r2 #2)."""
-    from modulation_mfcc_tpu.oracle import pyin_np
+    from modulation_mfcc.oracle import pyin_np
 
     sig, sr = _speechlike_sig()
     of0, ovoiced, _ = pyin_np(sig, sr, hop_length=100)
@@ -110,7 +110,7 @@ def test_pyin_matches_float64_oracle():
 
 def test_cmndf_matches_oracle_band():
     """Device CMNDF (sliding form) vs the oracle's float64 band <= 1e-6."""
-    from modulation_mfcc_tpu.ops.yin import _sliding_cmndf
+    from modulation_mfcc.ops.yin import _sliding_cmndf
 
     sig, sr = _speechlike_sig()
     frame_length, w, hop = 2048, 1024, 100
@@ -141,7 +141,7 @@ def test_pyin_oracle_parity_collision_heavy():
     (lags >~346 at 10 bins/semitone): exercises the last-write-wins bin
     projection, for both even and odd frame_length (odd loses one frame of
     span under centered padding). Bit-for-bit vs the float64 oracle."""
-    from modulation_mfcc_tpu.oracle import pyin_np
+    from modulation_mfcc.oracle import pyin_np
 
     rng = np.random.default_rng(0)
     sr = 44100
@@ -176,7 +176,7 @@ def test_pyin_oracle_parity_f32():
     order decides them: the FFT-roundtrip energy path flipped both in f32
     (while passing every f64 gate); the prefix-sum energy term matches the
     oracle exactly."""
-    from modulation_mfcc_tpu.oracle import pyin_np
+    from modulation_mfcc.oracle import pyin_np
 
     sig, sr = _speechlike_sig()
     of0, ovoiced, _ = pyin_np(sig, sr, fmin=75.0, fmax=600.0, hop_length=100)
@@ -197,7 +197,7 @@ def test_pyin_oracle_parity_nondefault_knobs():
     hotter Boltzmann, stickier switch_prob, fatter no_trough mass, fewer
     thresholds). All are reference-exposed (script/calc.py:408-419);
     decoded states must stay bit-identical to the float64 oracle."""
-    from modulation_mfcc_tpu.oracle import pyin_np
+    from modulation_mfcc.oracle import pyin_np
 
     sig, sr = _speechlike_sig()
     kw = dict(
@@ -219,8 +219,8 @@ def test_transition_width_guard():
     rather than emit 0/0-NaN rows."""
     import pytest
 
-    from modulation_mfcc_tpu.oracle import transition_local_np
-    from modulation_mfcc_tpu.ops.yin import _transition_local
+    from modulation_mfcc.oracle import transition_local_np
+    from modulation_mfcc.ops.yin import _transition_local
 
     for fn in (_transition_local, transition_local_np):
         with pytest.raises(ValueError, match="width"):
@@ -235,7 +235,7 @@ def test_pyin_oracle_parity_uncentered_and_reflect():
     framing (the reference passes pyincenter/pyinpad_mode verbatim,
     script/calc.py:418-419) — decoded states must still match the float64
     oracle bit-for-bit."""
-    from modulation_mfcc_tpu.oracle import pyin_np
+    from modulation_mfcc.oracle import pyin_np
 
     sig, sr = _speechlike_sig()
     for kw in ({"center": False}, {"center": True, "pad_mode": "reflect"}):
@@ -247,236 +247,46 @@ def test_pyin_oracle_parity_uncentered_and_reflect():
         np.testing.assert_allclose(jf0[jvoiced], of0[ovoiced], rtol=1e-12)
 
 
-def test_viterbi_forward_pallas_bit_identical():
-    """The whole-scan Pallas forward (pallas/viterbi.py, interpret mode)
-    must emit BIT-IDENTICAL deltas to the XLA kron-factored recursion —
-    elementwise adds are deterministic and max is order-independent, so
-    any difference is a bug, not noise. Covers n_bins both below and
-    above one 128-lane tile."""
-    import jax
-
-    from modulation_mfcc_tpu.pallas.viterbi import viterbi_forward_pallas
-
-    rng = np.random.default_rng(11)
-    for n_bins, nf in [(360, 40), (130, 7), (37, 25), (40, 600)]:
-        c_stay, c_sw = float(np.log(0.99)), float(np.log(0.01))
-        log_obs = jnp.asarray(
-            np.log(rng.random((nf, 2 * n_bins)) + 1e-12).astype(np.float32)
-        )
-        delta0 = jnp.asarray(
-            np.log(rng.random(2 * n_bins) + 1e-12).astype(np.float32)
-        )
-        tri = rng.random((n_bins, n_bins))
-        log_tri = jnp.asarray(np.log(tri / tri.sum(0) + 1e-30).astype(np.float32))
-
-        def vstep(delta, lo):
-            d_v, d_u = delta[:n_bins], delta[n_bins:]
-            m_v = jnp.maximum(d_v + c_stay, d_u + c_sw)
-            m_u = jnp.maximum(d_v + c_sw, d_u + c_stay)
-            new = jnp.concatenate(
-                [
-                    jnp.max(m_v[:, None] + log_tri, axis=0),
-                    jnp.max(m_u[:, None] + log_tri, axis=0),
-                ]
-            )
-            return new + lo, delta
-
-        want_f, want_hist = jax.lax.scan(vstep, delta0, log_obs[1:])
-        got_f, got_hist = viterbi_forward_pallas(
-            log_obs, delta0, log_tri, c_stay, c_sw, interpret=True
-        )
-        np.testing.assert_array_equal(np.asarray(got_f), np.asarray(want_f))
-        np.testing.assert_array_equal(np.asarray(got_hist), np.asarray(want_hist))
-
-
-def test_viterbi_decode_pallas_bit_identical():
-    """The fused forward+backtrace kernel must decode the IDENTICAL state
-    path as the XLA scan pair (first-max argmax ties included)."""
-    import jax
-
-    from modulation_mfcc_tpu.pallas.viterbi import viterbi_decode_pallas
-
-    rng = np.random.default_rng(13)
-    for n_bins, nf in [(360, 40), (130, 7), (40, 600), (40, 512)]:
-        c_stay, c_sw = float(np.log(0.99)), float(np.log(0.01))
-        log_obs = jnp.asarray(
-            np.log(rng.random((nf, 2 * n_bins)) + 1e-12).astype(np.float32)
-        )
-        delta0 = jnp.asarray(
-            np.log(rng.random(2 * n_bins) + 1e-12).astype(np.float32)
-        )
-        tri = rng.random((n_bins, n_bins))
-        log_tri = jnp.asarray(np.log(tri / tri.sum(0) + 1e-30).astype(np.float32))
-
-        def vstep(delta, lo):
-            d_v, d_u = delta[:n_bins], delta[n_bins:]
-            m_v = jnp.maximum(d_v + c_stay, d_u + c_sw)
-            m_u = jnp.maximum(d_v + c_sw, d_u + c_stay)
-            new = jnp.concatenate(
-                [
-                    jnp.max(m_v[:, None] + log_tri, axis=0),
-                    jnp.max(m_u[:, None] + log_tri, axis=0),
-                ]
-            )
-            return new + lo, delta
-
-        delta_f, delta_hist = jax.lax.scan(vstep, delta0, log_obs[1:])
-        last = jnp.argmax(delta_f)
-        log_tri_t = log_tri.T
-
-        def back(nxt, delta_prev):
-            d_v, d_u = delta_prev[:n_bins], delta_prev[n_bins:]
-            voiced_t = nxt < n_bins
-            pos = jnp.where(voiced_t, nxt, nxt - n_bins)
-            a = jnp.where(voiced_t, c_stay, c_sw)
-            b = jnp.where(voiced_t, c_sw, c_stay)
-            m = jnp.maximum(d_v + a, d_u + b)
-            sel = (d_u + b) > (d_v + a)
-            col = jax.lax.dynamic_slice_in_dim(log_tri_t, pos, 1, axis=0)[0]
-            base = jnp.argmax(m + col)
-            cur = base + n_bins * sel[base].astype(base.dtype)
-            return cur, cur
-
-        _, path_rev = jax.lax.scan(back, last, delta_hist, reverse=True)
-        want = np.asarray(jnp.concatenate([path_rev, jnp.asarray([last])]))
-        got = np.asarray(
-            viterbi_decode_pallas(
-                log_obs, delta0, log_tri, c_stay, c_sw, interpret=True
-            )
-        )
-        np.testing.assert_array_equal(got, want)
-
-
-def test_pyin_pallas_viterbi_dispatch(monkeypatch):
-    """End-to-end wiring check of viterbi_engine='pallas_full' and
-    'pallas' (interpret mode on CPU): identical decoded f0 through the
-    full public pyin_f0 vs the XLA engine."""
-    from functools import partial as _p
-
-    import modulation_mfcc_tpu.pallas.viterbi as pv
-
-    monkeypatch.setattr(
-        pv, "viterbi_decode_pallas", _p(pv.viterbi_decode_pallas, interpret=True)
-    )
-    monkeypatch.setattr(
-        pv, "viterbi_forward_pallas", _p(pv.viterbi_forward_pallas, interpret=True)
-    )
-    sig, sr = _speechlike_sig()
-    xj = jnp.asarray(sig, dtype=jnp.float32)
-    want = np.asarray(pyin_f0(xj, sr=float(sr), viterbi_engine="xla"))
-    got_full = np.asarray(pyin_f0(xj, sr=float(sr), viterbi_engine="pallas_full"))
-    got_fwd = np.asarray(pyin_f0(xj, sr=float(sr), viterbi_engine="pallas"))
-    got_bat = np.asarray(pyin_f0(xj, sr=float(sr), viterbi_engine="pallas_batched"))
-    np.testing.assert_array_equal(got_full, want)
-    np.testing.assert_array_equal(got_fwd, want)
-    np.testing.assert_array_equal(got_bat, want)
-
-
 def test_engine_auto_defaults_resolve_conservative_on_cpu():
-    """'auto' engines off-TPU must be EXACTLY the conservative forms the
-    float64 oracles pin: pyin auto == (xla viterbi + fft cmndf) and
-    pitch_ac auto == (xla sinc + fft autocorrelation), bit-identical.
-    Guards the r3 session-8 default flip (XLA engines measured fastest
-    on v5e; MXU forms are TPU-only autos)."""
-    from modulation_mfcc_tpu.ops.pitch import pitch_ac
+    """'auto' engines must be EXACTLY the conservative forms the float64
+    oracles pin: pyin auto == fft CMNDF and pitch_ac auto == fft
+    autocorrelation, bit-identical (the matmul forms stay selectable)."""
+    from modulation_mfcc.ops.pitch import pitch_ac
 
     sig, sr = _speechlike_sig()
     xj = jnp.asarray(sig, dtype=jnp.float32)
     np.testing.assert_array_equal(
         np.asarray(pyin_f0(xj, sr=float(sr))),
-        np.asarray(
-            pyin_f0(xj, sr=float(sr), viterbi_engine="xla", cmndf_engine="fft")
-        ),
+        np.asarray(pyin_f0(xj, sr=float(sr), cmndf_engine="fft")),
     )
     np.testing.assert_array_equal(
         np.asarray(pitch_ac(xj, sr=float(sr))),
-        np.asarray(
-            pitch_ac(xj, sr=float(sr), sinc_engine="xla", ac_engine="fft")
-        ),
+        np.asarray(pitch_ac(xj, sr=float(sr), ac_engine="fft")),
     )
 
 
-def test_engine_names_validated(monkeypatch):
-    """Typo'd engine values (direct or via the MODMFCC_* env hatches) must
-    error, not silently run the default engine — the corrupted-A/B-sweep
-    failure mode knobs.py guards for blkf (code-review, r3 session 8)."""
-    from modulation_mfcc_tpu.ops.pitch import pitch_ac
+def test_engine_names_validated():
+    """Typo'd engine values must error, not silently run the default
+    engine."""
+    from modulation_mfcc.ops.pitch import pitch_ac
 
     sig, sr = _speechlike_sig()
     xj = jnp.asarray(sig[:4096], dtype=jnp.float32)
-    with pytest.raises(ValueError, match="viterbi_engine"):
-        pyin_f0(xj, sr=float(sr), viterbi_engine="pallas-full")
     with pytest.raises(ValueError, match="cmndf_engine"):
-        pyin_f0(xj, sr=float(sr), cmndf_engine="matmul")
-    with pytest.raises(ValueError, match="sinc_engine"):
-        pitch_ac(xj, sr=float(sr), sinc_engine="palas")
+        pyin_f0(xj, sr=float(sr), cmndf_engine="mxu")
     with pytest.raises(ValueError, match="ac_engine"):
         pitch_ac(xj, sr=float(sr), ac_engine="dft")
-    monkeypatch.setenv("MODMFCC_VITERBI_ENGINE", "pallas_batch")
-    with pytest.raises(ValueError, match="viterbi_engine"):
-        pyin_f0(xj, sr=float(sr))
-    monkeypatch.setenv("MODMFCC_VITERBI_ENGINE", "auto")
-    # the cmndf env hatch resolves and pins the FFT form end-to-end
-    monkeypatch.setenv("MODMFCC_CMNDF_ENGINE", "fft")
-    a = np.asarray(pyin_f0(xj, sr=float(sr)))
-    b = np.asarray(pyin_f0(xj, sr=float(sr), cmndf_engine="fft"))
-    np.testing.assert_array_equal(a, b)
-
-
-def test_viterbi_decode_batched_bit_identical(monkeypatch):
-    """Batch-per-step decode kernels and the custom_vmap 'auto' route must
-    decode identical paths to the per-signal decode (interpret mode)."""
-    from functools import partial as _p
-
-    import jax
-
-    import modulation_mfcc_tpu.pallas.viterbi as pv
-
-    monkeypatch.setattr(
-        pv, "viterbi_decode_pallas", _p(pv.viterbi_decode_pallas, interpret=True)
-    )
-    monkeypatch.setattr(
-        pv, "viterbi_decode_batched", _p(pv.viterbi_decode_batched, interpret=True)
-    )
-    pv._decode_custom_vmap.cache_clear()  # rebind closures to the patches
-    rng = np.random.default_rng(17)
-    for n_bins, nf, nb in [(130, 40, 3), (40, 300, 2)]:
-        c_stay, c_sw = float(np.log(0.99)), float(np.log(0.01))
-        log_obs = jnp.asarray(
-            np.log(rng.random((nb, nf, 2 * n_bins)) + 1e-12).astype(np.float32)
-        )
-        delta0 = jnp.asarray(
-            np.log(rng.random((nb, 2 * n_bins)) + 1e-12).astype(np.float32)
-        )
-        tri = rng.random((n_bins, n_bins))
-        log_tri = jnp.asarray(np.log(tri / tri.sum(0) + 1e-30).astype(np.float32))
-        want = np.stack(
-            [
-                np.asarray(
-                    pv.viterbi_decode_pallas(log_obs[b], delta0[b], log_tri, c_stay, c_sw)
-                )
-                for b in range(nb)
-            ]
-        )
-        got = np.asarray(
-            pv.viterbi_decode_batched(log_obs, delta0, log_tri, c_stay, c_sw)
-        )
-        np.testing.assert_array_equal(got, want)
-        # the custom_vmap route: vmapped call must take the batched kernel
-        got_auto = np.asarray(
-            jax.vmap(
-                lambda o, d: pv.viterbi_decode_auto(o, d, log_tri, c_stay, c_sw)
-            )(log_obs, delta0)
-        )
-        np.testing.assert_array_equal(got_auto, want)
-    pv._decode_custom_vmap.cache_clear()  # drop entries bound to the patches
+    with pytest.raises(TypeError):
+        pyin_f0(xj, sr=float(sr), viterbi_engine="xla")
+    with pytest.raises(TypeError):
+        pitch_ac(xj, sr=float(sr), sinc_engine="xla")
 
 
 def test_sliding_cmndf_mxu_engine_matches_fft(rng):
-    """The MXU real-DFT-matmul CMNDF engine equals the FFT engine up to
+    """The real-DFT-matmul CMNDF engine equals the FFT engine up to
     float reduction order (same check grid as the framed-equality test,
     plus a pyin-default-shaped case)."""
-    from modulation_mfcc_tpu.ops.yin import _sliding_cmndf
+    from modulation_mfcc.ops.yin import _sliding_cmndf
 
     for hop, w, ml, n in (
         (10, 64, 17, 500),
@@ -487,20 +297,19 @@ def test_sliding_cmndf_mxu_engine_matches_fft(rng):
         x = jnp.asarray(rng.standard_normal(n).astype(np.float32))
         nf = 1 + (n - (w + ml + 1)) // hop
         want = np.asarray(_sliding_cmndf(x, nf, hop, w, ml, engine="fft"))
-        got = np.asarray(_sliding_cmndf(x, nf, hop, w, ml, engine="mxu"))
+        got = np.asarray(_sliding_cmndf(x, nf, hop, w, ml, engine="matmul"))
         np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
 
 
 def test_pyin_cmndf_engine_end_to_end_agreement():
-    """pyin_f0 with the MXU CMNDF engine agrees with the FFT default on
+    """pyin_f0 with the matmul CMNDF engine agrees with the FFT default on
     speech-like audio: voicing decisions ≥98% identical, ≤0.5 Hz on
     agreeing voiced frames (reduction-order deltas may flip frames that
-    sit exactly on a voicing boundary — same bar as the bench's
-    cross-engine gates)."""
+    sit exactly on a voicing boundary)."""
     sig, sr = _speechlike_sig()
     xj = jnp.asarray(sig, dtype=jnp.float32)
     fa = np.asarray(pyin_f0(xj, sr=float(sr)))
-    fb = np.asarray(pyin_f0(xj, sr=float(sr), cmndf_engine="mxu"))
+    fb = np.asarray(pyin_f0(xj, sr=float(sr), cmndf_engine="matmul"))
     agree = (fa > 0) == (fb > 0)
     assert agree.mean() >= 0.98, agree.mean()
     dv = np.abs(np.where(agree & (fa > 0), fa - fb, 0.0))
@@ -513,7 +322,7 @@ def test_pyin_states_and_path_score_certificate():
     decode is state-identical to the oracle, so the path-score gap is
     exactly 0 — and any OTHER path must score strictly worse (the
     harness's near-tie certificate separates f32 ties from decode bugs)."""
-    from modulation_mfcc_tpu import oracle
+    from modulation_mfcc import oracle
 
     sig, sr = _speechlike_sig()
     hop = int(round(0.01 * sr))
@@ -545,7 +354,7 @@ def test_pyin_oracle_bin_shift_invariant_off_boundary():
     .5 bin boundaries the decode is invariant under ±3e-3 — so a
     certificate match is evidence about the boundary, not a loosened
     oracle."""
-    from modulation_mfcc_tpu import oracle
+    from modulation_mfcc import oracle
 
     sig, sr = _speechlike_sig()
     hop = int(round(0.01 * sr))
